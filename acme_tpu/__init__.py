@@ -1,18 +1,18 @@
-"""acme_tpu: TPU-native analog circuit modeling and emulation.
+"""acme_tpu: analog circuit modeling and emulation on the GPU.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of ACME.jl
-(HSU-ANT/ACME.jl, mounted read-only at /root/reference): describe a circuit
-as a netlist, derive -- exactly, in rational arithmetic -- a discrete-time
-nonlinear state-space model, then run it.
+(HSU-ANT/ACME.jl): describe a circuit as a netlist, derive -- exactly, in
+rational arithmetic -- a discrete-time nonlinear state-space model, then
+run it.
 
 Two runtimes share one compiled model:
   * the host runtime (acme_tpu.runtime): numpy float64, per-sample loop with
     the reference's variable-iteration Newton/homotopy/caching solver chain;
     this is the semantics oracle.
-  * the TPU runtime (acme_tpu.engine): a ``lax.scan`` over time whose body is
-    a batched, per-lane-masked Newton with previous-sample warm starts and a
-    homotopy fallback, vmapped/sharded over thousands of circuit instances
-    ("lanes") and optionally fused into a Pallas kernel.
+  * the device runtime (acme_tpu.engine): a ``lax.scan`` over time whose
+    body is a batched, per-lane-masked Newton with previous-sample warm
+    starts and a homotopy fallback, vmapped/sharded over thousands of
+    circuit instances ("lanes"), on the GPU when there is one.
 
 Precision: the build pipeline is exact; the runtimes default to float64
 (set ACME_TPU_X64=0 before import to run float32 everywhere).

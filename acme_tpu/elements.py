@@ -29,14 +29,12 @@ _INF = float("inf")
 
 
 
-# Junction-limiting knee and linear-tail extent.  The knee must satisfy
-# exp(knee)*(1 + TAIL) < 8.3e34: double-float arithmetic (ops/dfmath.py)
-# Dekker-splits every product operand as 4097*a, which overflows float32
-# (and NaN-poisons the EFT) beyond ~8.3e34 -- see dfmath._split.  The
-# production kernel's compensated verdict runs the SAME element physics
-# in df, so the limited exponential must stay representable there:
-# exp(73)*(1+512) = 2.6e34 leaves a 3x margin, and exp(73) = 5e31 is
-# still ~30 decades beyond any physical junction operating point.
+# Junction-limiting knee and linear-tail extent.  The knee keeps
+# exp(knee)*(1 + TAIL) below ~8.3e34, where a float32 double-float
+# evaluation of the same physics (Dekker-splitting every product operand
+# as 4097*a) would overflow: exp(73)*(1+512) = 2.6e34 leaves a 3x margin,
+# and exp(73) = 5e31 is still ~30 decades beyond any physical junction
+# operating point.
 _EXP_KNEE = 73.0
 _EXP_TAIL = 512.0
 
@@ -61,10 +59,9 @@ def _exp_pair(xp, arg):
     Newton: on a pure (or flat-clamped) exponential an overshooting
     iterate walks back at ~vt per step because value/derivative == vt
     everywhere -- a multi-volt overshoot then costs ~40-100 'no progress'
-    iterations, which the fused kernel's plateau exit (6 strikes) reads
-    as a stall and dumps into rescue tiers that starve the same way (the
-    round-4 pots-grid traversal fails, _diag_fails.py; the f64 host only
-    survived by its 500-iteration patience, solvers.jl:205).  With the
+    iterations, which a solver with a plateau exit reads as a stall and
+    dumps into rescue tiers that starve the same way (the f64 host only
+    survives by its 500-iteration patience, solvers.jl:205).  With the
     tail's true constant derivative, Newton solves the linear tail
     EXACTLY: one step lands at the knee, one or two more finish.
     Solutions never sit above the knee, so converged results are

@@ -1,4 +1,4 @@
-"""TPU runtime: lax.scan over time, vmapped over a lane axis.
+"""Device runtime: lax.scan over time, vmapped over a lane axis.
 
 The host per-sample loop (/root/reference/src/ACME.jl:650-715) becomes::
 
@@ -32,7 +32,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from .model import DiscreteModel
-from .ops.newton import WarmStart, make_subsystem_solver
+# full-precision products: a float32 engine (ACME_TPU_X64=0) must not run
+# its GEMVs at the GPU's default reduced (TF32) matmul precision
+from .ops.newton import WarmStart, _mm as mm, make_subsystem_solver
 
 __all__ = ["CompiledModel", "compile_model", "BatchCompiledModel",
            "compile_models", "RunInfo"]
@@ -260,7 +262,8 @@ class CompiledModel:
             conv = jnp.ones((L,), bool)
             iters_k = []
             for k, sub in enumerate(subs):
-                p = x @ sub["dq"].T + u_t @ sub["eq"].T + z_acc @ sub["fqprev"].T
+                p = mm(x, sub["dq"].T) + mm(u_t, sub["eq"].T) \
+                    + mm(z_acc, sub["fqprev"].T)
                 result = solvers[k](p, carry["warms"][k])
                 z_acc = jax.lax.dynamic_update_slice(
                     z_acc, result.z, (0, sub["off"]))
@@ -269,8 +272,8 @@ class CompiledModel:
                 iters_k.append(result.iters)
             iters = (jnp.stack(iters_k, axis=-1) if iters_k
                      else jnp.zeros((L, 0), jnp.int32))
-            y = x @ dy.T + u_t @ ey.T + z_acc @ fy.T + y0
-            x_new = x @ a.T + u_t @ b.T + z_acc @ c.T + x0
+            y = mm(x, dy.T) + mm(u_t, ey.T) + mm(z_acc, fy.T) + y0
+            x_new = mm(x, a.T) + mm(u_t, b.T) + mm(z_acc, c.T) + x0
             return {"x": x_new, "warms": tuple(warms_out)}, (y, conv, iters)
 
         def scan_fn(carry, u_tm):
@@ -313,6 +316,23 @@ class CompiledModel:
         circuit inputs listed in ``lane_input_idx`` (e.g. pot positions).
         This is the 4096-lane drive x tone grid path: inputs stay O(T + L)
         instead of O(L*nu*T)."""
+        state, (y_tm, conv, iters) = self._scan_sweep(
+            *self._sweep_args(u_time, lane_values, lane_input_idx, state))
+        y = jnp.transpose(y_tm, (1, 2, 0))
+        return y, state, RunInfo(converged=conv, iters=iters)
+
+    def compile_sweep(self, u_time, lane_values, lane_input_idx,
+                      state=None) -> float:
+        """Compile :meth:`run_sweep` for these arguments' shapes without
+        running it (ahead of time, so set-up splits into compile and first
+        run); returns the seconds spent."""
+        import time
+        args = self._sweep_args(u_time, lane_values, lane_input_idx, state)
+        t0 = time.perf_counter()
+        self._scan_sweep.lower(*args).compile()
+        return time.perf_counter() - t0
+
+    def _sweep_args(self, u_time, lane_values, lane_input_idx, state):
         u_time = jnp.asarray(u_time, self.dtype)
         lane_values = jnp.asarray(lane_values, self.dtype)
         L = lane_values.shape[0]
@@ -321,11 +341,7 @@ class CompiledModel:
             raise ValueError("u_time rows + lane inputs must equal model inputs")
         if state is None:
             state = self.initial_state(L)
-        u_tm = u_time.T  # (T, nu_time)
-        state, (y_tm, conv, iters) = self._scan_sweep(state, u_tm, lane_values,
-                                                      lane_idx)
-        y = jnp.transpose(y_tm, (1, 2, 0))
-        return y, state, RunInfo(converged=conv, iters=iters)
+        return state, u_time.T, lane_values, lane_idx
 
     # -- execution ----------------------------------------------------------
     def run(self, u, state=None) -> Tuple[np.ndarray, dict, RunInfo]:
@@ -354,7 +370,7 @@ class CompiledModel:
         if self.warn:
             # reduce on device and fetch two scalars -- NOT the full (L,ny,T)
             # output: a host fetch here costs a device->host transfer of the
-            # whole run plus a pipeline stall per call (VERDICT r2 weak #8)
+            # whole run plus a pipeline stall per call
             finite, all_conv = _finite_conv(y, conv)
             if not bool(finite):
                 raise RuntimeError("Failed to converge while solving non-linear "
@@ -367,7 +383,7 @@ class CompiledModel:
 
 
 def compile_model(model: DiscreteModel, **kw) -> CompiledModel:
-    """Freeze a DiscreteModel into the TPU runtime."""
+    """Freeze a DiscreteModel into the device (scan) runtime."""
     return CompiledModel(model, **kw)
 
 
@@ -470,7 +486,8 @@ class BatchCompiledModel:
 
         def mv(M, v):
             # batched per-lane matvec: (L, m, n) x (L, n) -> (L, m)
-            return jnp.einsum("lmn,ln->lm", M, v)
+            return jnp.einsum("lmn,ln->lm", M, v,
+                              precision=jax.lax.Precision.HIGHEST)
 
         def step(carry, u_t):
             x = carry["x"]

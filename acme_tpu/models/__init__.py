@@ -12,7 +12,7 @@ double as integration fixtures and benchmark workloads:
 Each builder returns a Circuit; pass ``fs`` to the ``*_model`` helpers to get
 a compiled DiscreteModel.  Pots may be fixed (a number) or None, in which
 case the pot position becomes an extra circuit input (time-varying, and the
-natural lane-sweep axis on TPU).
+natural lane-sweep axis).
 """
 
 from __future__ import annotations
@@ -129,7 +129,7 @@ def superover(drive=None, tone=None, level=None, sym: bool = False,
     Electrically this pins the bias network; structurally it breaks the
     bias feedback loop so the nonlinearity decomposes into a chain of
     three small subsystems, np=(2,1,2) / nn=(2,3,2) instead of one
-    np=5 / nn=7 block -- the fast configuration for the fused TPU kernel
+    np=5 / nn=7 block -- the fast configuration for a batched runtime
     (three tiny eliminations and per-stage physics instead of a 7x7
     solve).  Note the reference's own steady-state check is broken for
     this variant (runtests.jl:763-764 @test_broken)."""

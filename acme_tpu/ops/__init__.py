@@ -1,5 +1,5 @@
-"""TPU compute kernels: batched small linear solves, masked Newton/homotopy,
-and (optionally) Pallas-fused scan bodies."""
+"""Device compute: batched small linear solves and the masked
+Newton/homotopy subsystem solver of the scan engine."""
 
 from .linsolve import solve_dense
 from .newton import make_subsystem_solver

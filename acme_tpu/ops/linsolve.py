@@ -2,10 +2,10 @@
 
 The Newton systems here are nn x nn with nn in {1..~14}; this is far below
 any LAPACK/XLA batched-LU crossover, so we unroll partial-pivot Gaussian
-elimination into straight-line jnp code (the TPU analog of the reference's
-hand-rolled LinearSolver, /root/reference/src/solvers.jl:38-137, which it
-hand-rolls for exactly the same reason).  Under vmap every operation becomes
-a batched VPU op over the lane axis; the data-dependent pivot choice turns
+elimination into straight-line jnp code (the analog of the reference's
+hand-rolled LinearSolver, solvers.jl:38-137, which it hand-rolls for exactly
+the same reason).  Under vmap every operation becomes one elementwise op
+over the lane axis, which XLA fuses; the data-dependent pivot choice turns
 into per-lane where-selects, keeping everything branch-free for XLA.
 
 Singularity semantics follow the reference: a zero pivot marks the solve as
@@ -15,6 +15,7 @@ those lanes (solvers.jl:220-225).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 __all__ = ["solve_dense"]
@@ -60,7 +61,8 @@ def solve_dense(J, B):
     for i in range(n - 1, -1, -1):
         rhs = A[i, n:]
         if i + 1 < n:
-            rhs = rhs - A[i, i + 1:n] @ X[i + 1:, :]
+            rhs = rhs - jnp.matmul(A[i, i + 1:n], X[i + 1:, :],
+                               precision=jax.lax.Precision.HIGHEST)
         d = A[i, i]
         safe_d = jnp.where(d == 0, jnp.ones((), dtype), d)
         X = X.at[i, :].set(rhs / safe_d)

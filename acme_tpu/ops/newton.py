@@ -1,7 +1,7 @@
 """Per-lane Newton solver with extrapolated warm start and homotopy fallback.
 
-This is the TPU re-expression of the reference solver chain
-(/root/reference/src/solvers.jl): SimpleSolver's Newton iteration becomes a
+This is the batched re-expression of the reference solver chain
+(solvers.jl): SimpleSolver's Newton iteration becomes a
 ``lax.while_loop`` whose per-lane updates are masked (under vmap the loop
 runs until every lane is done), the extrapolation origin becomes part of the
 scan carry as (p, z, dz/dp), and HomotopySolver's bisection continuation
@@ -23,6 +23,12 @@ import jax
 import jax.numpy as jnp
 
 from .linsolve import solve_dense
+
+
+def _mm(a, b):
+    """Matrix product at full precision (a float32 solve must not run at
+    the GPU's default reduced TF32 matmul precision)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 __all__ = ["WarmStart", "SolveResult", "make_subsystem_solver",
            "make_subsystem_solver_mats"]
@@ -107,9 +113,9 @@ def _solve_impl(nl, nn, dtype, tol, maxiter, homotopy, max_homotopy_steps,
                 p_arg, warm_arg, fq, pexp, q0):
 
     def eval_rj(pfull, z):
-        q = pfull + fq @ z
+        q = pfull + _mm(fq, z)
         res, Jq = nl(jnp, q)
-        return res, Jq @ fq, Jq
+        return res, _mm(Jq, fq), Jq
 
     def resmax_of(res):
         return jnp.max(jnp.abs(res)) if nn > 0 else jnp.zeros((), dtype)
@@ -145,13 +151,13 @@ def _solve_impl(nl, nn, dtype, tol, maxiter, homotopy, max_homotopy_steps,
         :233); callers must do the same or the poisoned sensitivity destroys
         every subsequent warm start."""
         _, J, Jq = eval_rj(pfull, z)
-        d, ok = solve_dense(J, Jq @ pexp)
+        d, ok = solve_dense(J, _mm(Jq, pexp))
         ok = ok & jnp.all(jnp.isfinite(d)) & jnp.all(jnp.isfinite(J))
         return -d, ok
 
     def solve(p, warm: WarmStart) -> SolveResult:
-        z0 = warm.z + warm.dzdp @ (p - warm.p)  # noqa: E306
-        pfull = q0 + pexp @ p
+        z0 = warm.z + _mm(warm.dzdp, p - warm.p)
+        pfull = q0 + _mm(pexp, p)
         z, conv, iters = newton(pfull, z0)
 
         if homotopy:
@@ -166,8 +172,8 @@ def _solve_impl(nl, nn, dtype, tol, maxiter, homotopy, max_homotopy_steps,
 
             def hbody(s: _HomotopyState):
                 pa = (1.0 - s.a) * start_p + s.a * p
-                z0a = s.warm.z + s.warm.dzdp @ (pa - s.warm.p)
-                pfa = q0 + pexp @ pa
+                z0a = s.warm.z + _mm(s.warm.dzdp, pa - s.warm.p)
+                pfa = q0 + _mm(pexp, pa)
                 zz, cc, its = newton(pfa, z0a)
                 dz_a, ok_a = dzdp_at(pfa, zz)
                 new_warm = WarmStart(p=pa, z=zz, dzdp=dz_a)

@@ -1,12 +1,13 @@
-"""Lane-axis sharding over a TPU mesh.
+"""Lane-axis sharding over a device mesh.
 
 The reference is single-process/single-thread (SURVEY.md section 2.3); the
-TPU-native scaling axis is the *lane* (independent circuit instance:
+scaling axis here is the *lane* (independent circuit instance:
 parameter-sweep point, audio channel, voice).  Lanes need no communication
-during the scan -- the recurrence is within-lane -- so multi-chip execution
-is pure SPMD data parallelism: shard the lane dimension of the carry and the
-inputs over the mesh and let the XLA partitioner run each shard locally.
-ICI traffic is limited to initial scatter / final gather.  That makes "dp"
+during the scan -- the recurrence is within-lane -- so multi-device
+execution is pure SPMD data parallelism: shard the lane dimension of the
+carry and the inputs over the mesh and let the XLA partitioner run each
+shard locally.  Traffic between devices (NVLink between the cards of one
+host) is limited to the initial scatter / final gather.  That makes "dp"
 the one real mesh axis for this workload; tensor/pipeline/sequence
 parallelism do not apply (the per-lane state is tens of floats and the time
 recurrence is inherently serial, see SURVEY.md sections 2.3 and 5).

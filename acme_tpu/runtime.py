@@ -120,7 +120,7 @@ def steadystate(model: DiscreteModel, u=None, return_z: bool = False):
     """Steady-state state vector for constant input u (ref ACME.jl:474-497).
 
     With ``return_z`` also returns the steady nonlinear solution vector
-    (used by the float32 fused runtime for operating-point centering)."""
+    (an operating point for centering a reduced-precision runtime)."""
     if u is None:
         u = np.zeros(model.nu)
     u = np.asarray(u, float)
@@ -167,7 +167,7 @@ def steadystate(model: DiscreteModel, u=None, return_z: bool = False):
 def operating_point(model: DiscreteModel, u=None, resabstol=1e-9,
                     runin=2048):
     """Approximate steady operating point (x, z) for constant input ``u``,
-    for float32 operating-point centering (ops/fused.py).
+    for operating-point centering of a reduced-precision runtime.
 
     Differs from :func:`steadystate` (the reference-faithful path,
     ACME.jl:474-497) in robustness and *branch selection*, not meaning --
@@ -176,7 +176,7 @@ def operating_point(model: DiscreteModel, u=None, resabstol=1e-9,
     BRANCH (a steady solve homotopied from zero can converge to a
     different root of a weakly-determined subsystem -- the dead-zone diode
     trio of the chain-decomposed superover -- and a wrong-root center
-    poisons every fused warm start).  Approach:
+    poisons every warm start).  Approach:
 
     1. **Run-in**: run the real dynamics for ``runin`` samples at constant
        ``u`` -- on-branch by construction; gives (x_run, z_run).
@@ -300,12 +300,12 @@ def _solve_sub_batch(model, idx, p, z0, tol=1e-10, maxiter=200):
             since_imp = np.where(improved, 0, since_imp + 1)
             # floor-stall acceptance: a lane stuck just above the
             # absolute tolerance at its f64 evaluation floor counts as
-            # solved (mirrors the fused kernel's stall semantics).  The
+            # solved (a floor-stall certificate).  The
             # floor follows the residual's cancelling term magnitudes,
             # sum_c |Jq| |q| per row -- measured at the BEST point only:
             # a diverging live iterate inflates its own term scale and
-            # would self-certify garbage (the same trap the fused
-            # kernel's relative gates guard against).
+            # would self-certify garbage (the trap relative gates must
+            # guard against).
             tscale = np.einsum("ijl,jl->il", np.abs(Jq_new),
                                np.abs(q)).max(0) if nn_k else 0.0
             tsc_best = np.where(improved, tscale, tsc_best)

@@ -1,9 +1,9 @@
 """State checkpoint/resume.
 
 The reference's only persistent state is model.x plus solver caches
-(SURVEY.md section 5); here the scan/fused carry (state, warm starts,
+(SURVEY.md section 5); here the scan engine's carry (state, warm starts,
 extrapolation origins) is an explicit pytree, so checkpointing is a plain
-save/load of arrays.  Works for both the engine and fused runners.
+save/load of arrays.
 """
 
 from __future__ import annotations

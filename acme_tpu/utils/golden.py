@@ -1,6 +1,6 @@
 """50-digit reference runs: an independent per-sample simulator in mpmath.
 
-The repo's parity chain is fused kernel -> scan engine -> host runtime,
+The repo's parity chain is scan engine -> host runtime,
 all written by the same authors; the reference's own tests leave golden
 outputs as a TODO (/root/reference/test/runtests.jl:691,702,727).  This
 module breaks the self-reference: it re-implements the run loop

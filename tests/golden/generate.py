@@ -5,7 +5,7 @@ Each trace is produced by acme_tpu.utils.golden.golden_run -- a 50-digit
 mpmath per-sample simulator that shares nothing with the production
 runtimes except the frozen model matrices and the element residual
 definitions (see that module's docstring).  The traces break the repo's
-self-referential parity chain (fused -> scan -> host -> transcribed
+self-referential parity chain (scan -> host -> transcribed
 semantics); the reference's own tests leave golden outputs as a TODO
 (/root/reference/test/runtests.jl:691,702,727).
 

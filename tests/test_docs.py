@@ -1,11 +1,10 @@
 """Execute the documentation's fenced python blocks so the docs cannot rot
-(the reference runs doctests via Documenter, e.g. src/circuit.jl:165-173;
-VERDICT r2 missing #2).
+(the reference runs doctests via Documenter, e.g. src/circuit.jl:165-173).
 
 Blocks within one document share a namespace (they build on each other).
 Long-running constants are shrunk via a light source rewrite (44100-sample
-runs become 441) -- the point is API liveness, not timing -- and the fused
-kernel runs in interpret mode on the CPU test mesh.
+runs become 441) -- the point is API liveness, not timing -- on the CPU
+test mesh.
 """
 
 import re
@@ -36,72 +35,36 @@ def test_gettingstarted_blocks_run():
     assert np.asarray(ns["y"]).shape[-1] == 441
 
 
-def test_tpu_guide_blocks_run():
-    import acme_tpu as A
-    from acme_tpu.engine import compile_model
+def test_gpu_guide_blocks_run():
     from acme_tpu.models import diodeclipper_model
-    from acme_tpu.ops import fused
 
-    blocks = _python_blocks(DOCS / "tpu.md")
-    assert blocks, "tpu.md lost its python examples"
+    blocks = _python_blocks(DOCS / "gpu.md")
+    assert blocks, "gpu.md lost its python examples"
 
-    # the guide's snippets assume a model/u from the getting-started flow
-    # and real TPU hardware; provide a tiny stand-in model and force the
-    # fused kernel into interpret mode (CPU test mesh)
+    # the guide's snippets assume a model/u from the getting-started flow;
+    # provide a tiny stand-in model (no pot inputs) on the CPU test mesh
     model = diodeclipper_model()
     T = 64
     u = 0.4 * np.sin(2 * np.pi * 1000 / 44100 * np.arange(T))[None, :]
-
-    class InterpretRunner(fused.FusedRunner):
-        def __init__(self, m, **kw):
-            kw.setdefault("interpret", True)
-            kw.setdefault("newton_iters", 12)
-            kw.setdefault("compensated", False)
-            kw.setdefault("extrapolate", False)
-            super().__init__(m, **kw)
-
-    ns = {"model": model, "u": u,
-          "u_time": u, "lane_values": np.zeros((128, 0)),
-          "np": np}
-    orig = fused.FusedRunner
-    fused.FusedRunner = InterpretRunner  # the blocks import it themselves
-    try:
-        for src in blocks:
-            src = src.replace("FusedRunner(model, lane_input_idx=(1, 2))",
-                              "FusedRunner(model)")
-            src = src.replace(
-                "run_sweep(u_time, lane_values, lane_input_idx=(1, 2))",
-                "run_sweep(u_time, np.zeros((8, 0)), lane_input_idx=())")
-            src = src.replace(
-                "sharded_run_sweep(cm, u_time, lane_values, (1, 2), mesh)",
-                "sharded_run_sweep(cm, u_time, np.zeros((8, 0)), (), mesh)")
-            exec(compile(src, "tpu.md", "exec"), ns)
-    finally:
-        fused.FusedRunner = orig
+    ns = {"model": model, "u": u, "u_time": u, "np": np}
+    for src in blocks:
+        src = src.replace(
+            "run_sweep(u_time, lane_values, lane_input_idx=(1, 2))",
+            "run_sweep(u_time, np.zeros((8, 0)), lane_input_idx=())")
+        src = src.replace(
+            "sharded_run_sweep(cm, u_time, lane_values, (1, 2), mesh)",
+            "sharded_run_sweep(cm, u_time, np.zeros((8, 0)), (), mesh)")
+        exec(compile(src, "gpu.md", "exec"), ns)
     assert np.asarray(ns["y"]).shape[-1] == T
 
 
 def test_readme_quickstart_runs():
-    """The README's quickstart block must stay executable too (fused kernel
-    in interpret mode with the cheap options -- API liveness, not timing)."""
-    from acme_tpu.ops import fused
-
+    """The README's quickstart block must stay executable too (API
+    liveness, not timing)."""
     readme = DOCS.parent / "README.md"
     blocks = _python_blocks(readme)
-    if not blocks:
-        pytest.skip("README has no python blocks")
-
-    class InterpretRunner(fused.FusedRunner):
-        def __init__(self, m, **kw):
-            kw.update(interpret=True, newton_iters=12, compensated=False,
-                      extrapolate=False)
-            super().__init__(m, **kw)
-
+    assert blocks, "README lost its python quickstart"
     ns = {}
-    orig = fused.FusedRunner
-    fused.FusedRunner = InterpretRunner
-    try:
-        for src in blocks:
-            exec(compile(_shrink(src), "README.md", "exec"), ns)
-    finally:
-        fused.FusedRunner = orig
+    for src in blocks:
+        exec(compile(_shrink(src), "README.md", "exec"), ns)
+    assert np.asarray(ns["y"]).shape[-1] == 441

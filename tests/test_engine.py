@@ -1,4 +1,4 @@
-"""TPU-runtime (JAX scan engine) tests: golden parity against the host
+"""Device-runtime (JAX scan engine) tests: golden parity against the host
 reference runtime, lane batching consistency, convergence-failure semantics.
 
 Parity bound: the driver's north star is -100 dB output error
@@ -156,7 +156,7 @@ def test_per_lane_model_matrices():
 
 def test_no_retrace_and_no_bulk_host_fetch(sine):
     """Hot-loop regression guard (the reference asserts 0 bytes allocated
-    per run!, test/runtests.jl:712-715; VERDICT r2 missing #3): a second
+    per run!, test/runtests.jl:712-715): a second
     run with the same shapes must not retrace/recompile, and the warn-path
     finiteness check must reduce on device (two scalars), not fetch the
     full output."""

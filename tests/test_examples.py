@@ -320,7 +320,7 @@ def test_checkpoint_roundtrip_engine_state(tmp_path):
 
 def test_element_equality_distinguishes_parameters():
     """diode(is_=1e-15) != diode(is_=1e-12); equal parameters compare
-    equal even across separately-constructed closures (ADVICE round 1)."""
+    equal even across separately-constructed closures."""
     assert A.diode(is_=1e-12) == A.diode(is_=1e-12)
     assert A.diode(is_=1e-15) != A.diode(is_=1e-12)
     assert A.diode(is_=1e-12, eta=2.0) != A.diode(is_=1e-12)

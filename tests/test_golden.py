@@ -2,8 +2,8 @@
 
 The traces (tests/golden/*.npz) come from an INDEPENDENT simulator --
 arbitrary-precision mpmath Newton re-implemented from the equations alone
-(acme_tpu/utils/golden.py) -- breaking the fused -> scan -> host
-self-referential parity chain (VERDICT r3 missing #2).  The reference
+(acme_tpu/utils/golden.py) -- breaking the scan -> host
+self-referential parity chain.  The reference
 leaves golden outputs as its own TODO
 (/root/reference/test/runtests.jl:691,702,727); SURVEY.md section 4 names
 golden-output parity as a required addition.
@@ -33,7 +33,7 @@ CASES = {
     # pots-AS-INPUTS superover corners (variable-pot element,
     # /root/reference/src/elements.jl:20-31; np=11 fixture
     # test/runtests.jl:777): the flagship bench axis gets its own
-    # independent anchors (VERDICT r4 ask #9)
+    # independent anchors
     "superover_pots_lo": lambda: M.superover_model(level=1.0, fs=44100),
     "superover_pots_mid": lambda: M.superover_model(level=1.0, fs=44100),
     "superover_pots_hi": lambda: M.superover_model(level=1.0, fs=44100),

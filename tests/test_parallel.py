@@ -66,35 +66,14 @@ def test_lanes_not_divisible_raises(clipper_cm):
         sharded_run(clipper_cm, u, mesh)
 
 
-def test_sharded_fused_kernel_matches_local():
-    """The fused Pallas kernel shard_map-ed over the mesh (VERDICT r2 weak
-    #3): per-device kernels over local lane groups, no collectives; must
-    match the unsharded kernel bit-for-bit (same arithmetic per lane)."""
-    from acme_tpu.ops.fused import FusedRunner
+def test_sharded_state_spans_the_mesh(clipper_cm):
+    """The carry comes back sharded over every device of the mesh (no
+    device holds all lanes)."""
+    from acme_tpu.parallel import sharded_run
 
-    T = 48
-    u = (0.5 * np.sin(2 * np.pi * 1000 / 44100 * np.arange(T)))[None, :]
-    kw = dict(newton_iters=12, tol=1e-9, interpret=True,
-              compensated=False, extrapolate=False, time_chunk=16)
-    m = M.diodeclipper_model()
-    levels = np.linspace(0.25, 1.5, 1024)[:, None]
-    fr_loc = FusedRunner(m, lane_scale_idx=(0,), **kw)
-    y_loc, _, info_loc = fr_loc.run(u, levels)
-    fr_sh = FusedRunner(m, lane_scale_idx=(0,), mesh=lane_mesh(8), **kw)
-    y_sh, st, info_sh = fr_sh.run(u, levels)
-    np.testing.assert_array_equal(np.asarray(y_sh), np.asarray(y_loc))
-    np.testing.assert_array_equal(np.asarray(info_sh.fails),
-                                  np.asarray(info_loc.fails))
-    # state carry across calls stays sharded and consistent
-    y2, _, _ = fr_sh.run(u, levels, state=st)
-    assert np.all(np.isfinite(np.asarray(y2)))
-
-
-def test_sharded_fused_rejects_indivisible():
-    from acme_tpu.ops.fused import FusedRunner
-
-    m = M.diodeclipper_model()
-    fr = FusedRunner(m, newton_iters=4, interpret=True, compensated=False,
-                     extrapolate=False, mesh=lane_mesh(8))
-    with pytest.raises(ValueError, match="not divisible"):
-        fr.run(np.zeros((1, 8)), np.zeros((128, 0)))
+    mesh = lane_mesh(8)
+    u = 0.3 * np.ones((16, 1, 12))
+    _, st, _ = sharded_run(clipper_cm, u, mesh)
+    owners = {s.device for s in st["x"].addressable_shards}
+    assert len(owners) == 8
+    assert all(s.data.shape[0] == 2 for s in st["x"].addressable_shards)

@@ -1,5 +1,5 @@
-"""Lane-batched steady states: runtime.steadystate_sweep and the fused
-runner's per-lane steady start (FusedRunner.steady_initial_state).
+"""Lane-batched steady states: runtime.steadystate_sweep and the scan
+engine's per-lane steady start (CompiledModel.steady_initial_state).
 
 Reference analog: steadystate!/run! state persistence (ACME.jl:474-503,
 552-568), here vectorized over a lane axis of constant inputs so the
@@ -13,7 +13,6 @@ import pytest
 
 import acme_tpu as A
 from acme_tpu import models as M
-from acme_tpu.ops.fused import FusedRunner
 from acme_tpu.runtime import steadystate, steadystate_sweep
 
 
@@ -103,81 +102,6 @@ def test_steadystate_sweep_chain_superover_certifies_floor_free():
         assert np.max(np.abs(y[:, 0])) < 1e-3
 
 
-def test_fused_steady_initial_state_birdie():
-    """Per-lane steady start through the fused kernel: a run at constant
-    (zero) audio from steady_initial_state must show no power-up
-    transient -- output flat from sample 0 at each lane's own steady
-    output."""
-    m = M.birdie_model()
-    fr = FusedRunner(m, lane_input_idx=(1,), time_chunk=32,
-                     newton_iters=12, tol=1e-9, interpret=True,
-                     compensated=False, extrapolate=False)
-    vols = np.concatenate([np.full(64, 0.2), np.full(64, 0.9)])[:, None]
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        state = fr.steady_initial_state(vols)
-    T = 32
-    u = np.zeros((1, T))
-    y, _, info = fr.run(u, vols, state=state)
-    y = np.asarray(y)
-    assert int(np.asarray(info.fails).sum()) == 0
-    # flat output (no transient) at the per-lane steady value
-    for lane, vol in ((0, 0.2), (127, 0.9)):
-        xs, zs = steadystate(m, np.array([0.0, vol]), return_z=True)
-        y_ss = (m.dy @ xs + m.ey @ np.array([0.0, vol]) + m.fy @ zs
-                + m.y0)[0]
-        assert np.max(np.abs(y[lane, 0] - y_ss)) < 5e-4
-        assert np.max(np.abs(y[lane, 0] - y[lane, 0, 0])) < 5e-4
-
-
-def test_fused_powerup_steady_knob():
-    """powerup='steady': a fresh run() goes straight to the per-lane
-    steady start (no power-up window, no transient)."""
-    m = M.birdie_model()
-    fr = FusedRunner(m, lane_input_idx=(1,), time_chunk=16,
-                     newton_iters=12, tol=1e-9, interpret=True,
-                     compensated=False, extrapolate=False,
-                     powerup="steady")
-    vols = np.full((128, 1), 0.7)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        y, st, info = fr.run(np.zeros((1, 16)), vols)
-    y = np.asarray(y)
-    assert int(np.asarray(info.fails).sum()) == 0
-    assert np.max(np.abs(y[0, 0] - y[0, 0, 0])) < 5e-4   # flat: no transient
-
-
-def test_fused_steady_initial_state_dedups_duplicate_rows(monkeypatch):
-    """Lanes that differ only in scale columns share one constant-input
-    steady problem: steady_initial_state must solve each unique row once
-    (measured: a 4096-level input sweep was 4096 copies of the same
-    solve, ~13 min of pure waste) and scatter the result."""
-    import acme_tpu.runtime as R
-
-    calls = []
-    orig = R.steadystate_sweep
-
-    def counting(m, u_lanes, **kw):
-        calls.append(np.asarray(u_lanes).shape[0])
-        return orig(m, u_lanes, **kw)
-
-    monkeypatch.setattr(R, "steadystate_sweep", counting)
-    m = M.birdie_model()
-    fr = FusedRunner(m, lane_input_idx=(1,), time_chunk=32,
-                     newton_iters=12, tol=1e-9, interpret=True,
-                     compensated=False, extrapolate=False)
-    vols = np.concatenate([np.full(64, 0.2), np.full(64, 0.9)])[:, None]
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        state = fr.steady_initial_state(vols)
-    assert calls == [2]            # 128 lanes, 2 unique rows
-    # scattered states are lane-constant within each duplicate block
-    x = np.asarray(state["x"]).reshape(m.nx, -1)
-    assert np.ptp(x[:, :64], axis=1).max() == 0.0
-    assert np.ptp(x[:, 64:], axis=1).max() == 0.0
-
-
-@pytest.mark.slow
 def test_steadystate_sweep_certifies_chain_superover_endstop():
     """drive=tone=1.0 (pot end-stop) chain superover: the vb bias rail
     settles with tau ~ 30k samples, so a long run-in is needed; the host
